@@ -1,9 +1,9 @@
-"""Multi-host pod launcher: sharded chains + collectives over a real slice.
+"""Multi-host launcher: sharded chains + collectives over several hosts.
 
 The ready-to-run measurement plan for the >=85% multi-host scaling gate
 (BASELINE.md). One process per host; the coordinator address is host 0.
 
-    # on every host of the slice (example: 4 hosts):
+    # on every host (example: 4 hosts):
     python benchmarks/pod_launch.py \
         --coordinator 10.0.0.2:9876 --num-processes 4 --process-id $HOST_ID \
         --chains-per-host 1024 --objects 100 --iters 2000
@@ -21,8 +21,7 @@ The chain loop itself has ZERO collectives (chains are independent,
 exactly like the reference's grid of CUDA blocks), so the expected
 efficiency is ~1.0 until collective-adaptation rounds (one scalar psum
 per `--steps-per-round`) or tempering exchanges (one `ppermute` of
-replica states per `--exchange-every`) amortize poorly; see
-docs/PERFORMANCE.md "Multi-host scaling projection" for the cost model.
+replica states per `--exchange-every`) amortize poorly.
 """
 
 from __future__ import annotations

@@ -1,7 +1,6 @@
-"""Per-term ablation of the XLA scan engine (VERDICT r4 task 5).
+"""Per-term ablation of the XLA scan engine.
 
-Applies the op-count lens that settled the fused kernel's plateau to the
-XLA specialized scan: each run zeroes one cost-term group at trace time
+Prices each cost term's share of the XLA specialized scan: each run zeroes one cost-term group at trace time
 (``MH_XLA_SKIP`` in mh_tpu/ops/costs.py) in a FRESH subprocess (the knob
 is read at import) and re-measures the headline config with bench.py's
 3-length linearity fit. Shares = 1 - skip_time/baseline_time.

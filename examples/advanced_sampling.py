@@ -30,6 +30,7 @@ from mh_tpu.sampler.hmc import hmc_sample
 from mh_tpu.sampler.smc import run_smc
 from mh_tpu.sampler.tempering import run_tempered
 from mh_tpu.sampler.vi import meanfield_vi
+from mh_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main() -> None:
@@ -38,6 +39,7 @@ def main() -> None:
     ap.add_argument("--replicas", type=int, default=16)
     args = ap.parse_args()
 
+    enable_compile_cache()
     print(device_report())
     mesh = chain_mesh()
     n_dev = len(jax.devices())

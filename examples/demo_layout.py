@@ -1,4 +1,4 @@
-"""Demo harness: the reference `main()` scene on TPU (SURVEY.md C11).
+"""Demo harness: the reference `main()` scene (SURVEY.md C11).
 
 Reproduces the hard-coded 32-object scene of ``Kernel.cu:1003-1218`` —
 10x10 surface, one distance + one angle relationship, two clearances,
@@ -23,6 +23,7 @@ import time
 import jax
 
 from mh_tpu import SamplerConfig, demo_scene, suggest_layouts
+from mh_tpu.utils.compile_cache import enable_compile_cache
 
 
 def main() -> None:
@@ -33,6 +34,7 @@ def main() -> None:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args()
 
+    enable_compile_cache()
     print(f"devices: {jax.devices()}")
     spec = demo_scene(args.objects)
     cfg = SamplerConfig(iterations=args.iters, n_chains=args.chains)

@@ -1,9 +1,9 @@
-"""mh_tpu — a TPU-native Metropolis-Hastings scene-layout inference engine.
+"""mh_tpu — a Metropolis-Hastings scene-layout inference engine on JAX.
 
-A from-scratch JAX/XLA/Pallas framework with the capabilities of the CUDA
+A from-scratch JAX/XLA framework with the capabilities of the CUDA
 reference ``j-timothy-balint/Metropolis-Hastings-GPGPU`` (parallel MH
 optimization of 2-D furniture/scene layouts, Merrell-style interior-design
-cost terms), re-designed TPU-first:
+cost terms), re-designed for batched accelerator execution:
 
 - Scene + chain state are static-shaped, masked PyTrees (reference data
   model: ``Kernel.cu:43-149``).

@@ -7,7 +7,7 @@ files or flags; results write as JSON.
 Commands:
   suggest   run MH layout suggestions on a scene (file or built-in demo)
   demo      run + pretty-print the reference demo scene
-  pi        Monte-Carlo pi estimate (XLA path; --fused for the Pallas kernel)
+  pi        Monte-Carlo pi estimate
   devices   report the JAX device topology (reference C10)
   temper    parallel tempering over the mesh (--adapt-ladder for the
             swap-rate-adaptive ladder)
@@ -130,16 +130,10 @@ def cmd_demo(args) -> int:
 def cmd_pi(args) -> int:
     import jax
 
-    if args.fused:
-        from mh_tpu.kernels.pi_kernel import estimate_pi_fused
+    from mh_tpu.models.pi import estimate_pi
 
-        est, total = estimate_pi_fused(args.seed, args.samples)
-        print(f"pi ~= {float(est):.6f}  ({total} samples, fused kernel)")
-    else:
-        from mh_tpu.models.pi import estimate_pi
-
-        est = estimate_pi(jax.random.key(args.seed), n_samples=args.samples)
-        print(f"pi ~= {float(est):.6f}  ({args.samples} samples)")
+    est = estimate_pi(jax.random.key(args.seed), n_samples=args.samples)
+    print(f"pi ~= {float(est):.6f}  ({args.samples} samples)")
     return 0
 
 
@@ -226,7 +220,7 @@ def main(argv=None) -> int:
     p.add_argument("--out", help="write results JSON here")
     p.add_argument(
         "--engine", default="auto",
-        choices=["auto", "xla", "xla_specialized", "fused"],
+        choices=["auto", "xla", "xla_specialized"],
         help="sampling engine (see suggest_layouts)",
     )
     p.add_argument(
@@ -250,7 +244,6 @@ def main(argv=None) -> int:
     p = sub.add_parser("pi", help="Monte-Carlo pi estimate")
     p.add_argument("--samples", type=int, default=1 << 22)
     p.add_argument("--seed", type=int, default=0)
-    p.add_argument("--fused", action="store_true", help="Pallas TPU kernel")
     p.set_defaults(fn=cmd_pi)
 
     p = sub.add_parser("devices", help="device/mesh report")

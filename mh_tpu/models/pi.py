@@ -1,6 +1,6 @@
 """Monte-Carlo pi estimator (SURVEY.md B10).
 
-TPU-native re-creation of the NVIDIA ``MC_EstimatePiInlineP`` sample whose
+A JAX re-creation of the NVIDIA ``MC_EstimatePiInlineP`` sample whose
 project shell the reference repurposed (``MC_EstimatePiInlineP/readme.txt:4-9``;
 sources absent from the repo): draw uniform points in the unit square, the
 fraction inside the quarter disc estimates pi/4. Runs on the same

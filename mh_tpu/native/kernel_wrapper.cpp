@@ -1,6 +1,6 @@
 /* mh_tpu native runtime: C ABI shared library embedding the JAX engine.
  *
- * TPU-native re-creation of the reference's host wrapper (SURVEY.md C9):
+ * Re-creation of the reference's host wrapper (SURVEY.md C9):
  * where the reference builds a CUDA DLL whose exported KernelWrapper stages
  * buffers and launches kernels (Kernel.cu:873-984), this library embeds
  * CPython, forwards the same wire structs to mh_tpu.native.bridge as raw

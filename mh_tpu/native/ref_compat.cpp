@@ -2,7 +2,7 @@
  *
  * Marshals the reference's struct layouts (Kernel.cu:43-149) into the
  * mh_tpu wire format (wire.h) and forwards to MHKernelWrapper — so the
- * reference's DLL consumers get the TPU engine behind the exact ABI they
+ * reference's DLL consumers get the JAX engine behind the exact ABI they
  * already speak, with real cost breakdowns instead of the reference's
  * uninitialized ones (Kernel.cu:852-861).
  */

@@ -1,6 +1,6 @@
 /* mh_tpu native C ABI — wire format v1.
  *
- * The TPU-native equivalent of the reference's exported DLL surface
+ * The equivalent of the reference's exported DLL surface
  * (KernelWrapper, Kernel.cu:873: relationshipStruct / relationshipAngleStruct
  * / positionAndRotation / rectangle / Surface / gpuConfig in, result out).
  * Every field is 8 bytes (double or int64) so the layout is identical on

@@ -1,11 +1,11 @@
 """The layout objective: seven masked, vectorized cost terms + aggregator.
 
-TPU-native re-design of the reference cost library (SURVEY.md C4/C5,
+Vectorized re-design of the reference cost library (SURVEY.md C4/C5,
 ``Kernel.cu:191-564``). Each term is a pure function of
 ``(pose f32[N,6], Scene)`` returning the *raw* (unweighted) error <= 0,
 written as masked tensor expressions: the O(N^2) terms (symmetry,
 off-limits) evaluate full N x N matrices via broadcasting so XLA fuses the
-whole objective into a handful of VPU kernels — no per-object loops, no
+whole objective into a handful of elementwise kernels — no per-object loops, no
 dynamic shapes, trivially batchable over chains with ``vmap``.
 
 ``cost_terms`` applies the Surface weights and aggregates exactly like the
@@ -22,8 +22,7 @@ import os
 import jax
 import jax.numpy as jnp
 
-# Debug-only term ablation for the XLA engines (the op-count lens that
-# cracked the fused kernel's round-4 plateau, applied to the scan path):
+# Debug-only term ablation for the XLA engines:
 # MH_XLA_SKIP=sym,rel,... zeroes those terms at trace time so
 # benchmarks/xla_ablation.py can price each term's share of the step.
 # NEVER set in production — totals become wrong by construction.
@@ -293,7 +292,7 @@ def cost_terms(
         # (only decidable when the scene is a trace-time constant — the
         # scene-specialized scan; traced scenes keep the term). The
         # weighted term is identically 0, so skipping the O(N^2) matrix
-        # is exact — mirrors the fused kernel's track_off gating.
+        # is exact.
         off = zero
     else:
         off = scene.w_offlimits * off_limits_costs(pose, scene, mode)

@@ -1,6 +1,6 @@
 """Vectorized geometry primitives.
 
-TPU-native equivalents of the reference device helpers (SURVEY.md C3):
+Vectorized equivalents of the reference device helpers (SURVEY.md C3):
 ``Distance`` (``Kernel.cu:162``), ``theta`` (``:170``), ``phi`` (``:185``),
 ``calculateIntersectionArea`` (``:321``), ``createComplementRectangle``
 (``:343``). All functions are elementwise over arbitrary batch shapes so the

@@ -1,8 +1,8 @@
 """Multi-host initialization glue (``jax.distributed``) + pod meshes.
 
 The reference is strictly single-process/single-GPU (SURVEY.md §3.5); this
-module is the entry point for running the samplers across a TPU pod slice
-or multiple hosts over DCN: call :func:`initialize` once per process before
+module is the entry point for running the samplers across multiple
+processes or hosts: call :func:`initialize` once per process before
 any JAX computation, then build meshes over the *global* device set — every
 sharded program in :mod:`mh_tpu.parallel` / :mod:`mh_tpu.sampler` already
 folds chain keys from global indices, so results are identical at any
@@ -27,7 +27,7 @@ def initialize(
 ) -> None:
     """Initialize ``jax.distributed`` for multi-host runs.
 
-    With no arguments, relies on the environment (TPU pod metadata or the
+    With no arguments, relies on the environment (the
     ``JAX_COORDINATOR_ADDRESS`` / ``JAX_NUM_PROCESSES`` / ``JAX_PROCESS_ID``
     variables). Safe to call on single-host setups: it is a no-op when no
     coordination info is available.
@@ -54,8 +54,8 @@ def initialize(
 def global_chain_mesh(axis: str = "chains") -> jax.sharding.Mesh:
     """Mesh over all global devices (every host's chips), chains sharded.
 
-    Chains ride ICI within a slice and DCN across hosts; the collective
-    traffic of adaptation/tempering/SMC is O(scalars) or O(boundary
-    replicas), so DCN latency is amortized over steps_per_round.
+    Chains ride the device interconnect within a host and the network
+    across hosts; the collective traffic of adaptation/tempering/SMC is
+    O(scalars) or O(boundary replicas), so network latency is amortized over steps_per_round.
     """
     return jax.make_mesh((jax.device_count(),), (axis,))

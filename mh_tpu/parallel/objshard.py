@@ -8,7 +8,7 @@ axis: every device holds the full pose (replicated — it is only O(N)) but
 computes an N/D-row slice of each pairwise matrix; scalar partial sums are
 reduced with ``psum``. This is the architectural cousin of blockwise/ring
 attention applied to layout costs: compute is partitioned, the reduction
-rides ICI.
+rides the device interconnect.
 
 O(N) and O(R)/O(C) terms are evaluated redundantly on every device (they
 are negligible); the result is bitwise-consistent with the unsharded
@@ -194,7 +194,7 @@ def run_chains_objsharded(
     ``CHAINS_AXIS`` exactly as :func:`run_chains_sharded`; *within* each
     chain, every OBJS_AXIS device keeps a full pose replica (O(N), cheap)
     but evaluates only its row slice of the N x N symmetry/off-limits
-    matrices, reduced with ``psum`` over ICI each step
+    matrices, reduced with ``psum`` across devices each step
     (:func:`rowsharded_breakdown`).
 
     Lockstep correctness: proposals and accept draws are keyed from the

@@ -1,8 +1,10 @@
-"""Sharded chain execution: shard_map(vmap(chain)) over the device mesh.
+"""Sharded chain execution over the device mesh.
 
-The idiomatic TPU mapping of the reference's grid-of-blocks (SURVEY.md
+The idiomatic JAX mapping of the reference's grid-of-blocks (SURVEY.md
 §2.4): each device runs a vmapped batch of chains; the chains axis is
-sharded over the mesh with ``jax.shard_map``; the scene is replicated.
+sharded over the mesh; the scene is replicated. Independent chains are
+the single-device program partitioned by XLA; the collective samplers
+use ``jax.shard_map``.
 Collective acceptance-rate adaptation shares one step-size scale across
 *all* chains on all devices via ``psum`` — communication the reference has
 no equivalent of (its blocks never talk, ``Kernel.cu:754-871``).
@@ -15,17 +17,43 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from jax.sharding import Mesh, PartitionSpec as P
+from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from mh_tpu.config import SamplerConfig
 from mh_tpu.models.scene import Scene
-from mh_tpu.sampler.mh import MHState, finalize_costs, mh_init, mh_step
+from mh_tpu.sampler.mh import (
+    MHState,
+    _chains_impl,
+    _continue_impl,
+    _strip_iterations,
+    finalize_costs,
+    mh_init,
+    mh_step,
+)
 from mh_tpu.parallel.mesh import CHAINS_AXIS, to_varying as _varying
 
 Array = jax.Array
 
 
+def _check_divisible(cfg: SamplerConfig, mesh: Mesh) -> None:
+    n_dev = mesh.shape[CHAINS_AXIS]
+    if cfg.n_chains % n_dev:
+        raise ValueError(f"n_chains={cfg.n_chains} not divisible by mesh size {n_dev}")
+
+
+def _partitioned_chains(mesh: Mesh) -> NamedSharding:
+    """Chains split over ``mesh``, on a copy of it whose axes XLA's
+    partitioner places (a mesh from ``jax.make_mesh`` has explicit axes)."""
+    return NamedSharding(Mesh(mesh.devices, mesh.axis_names), P(CHAINS_AXIS))
+
+
 @partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _run_chains_sharded_jit(key, pose0, scene, n_steps, cfg, mesh):
+    chains = _partitioned_chains(mesh)
+    states, _ = _chains_impl(key, pose0, scene, n_steps, cfg, sharding=chains)
+    return jax.lax.with_sharding_constraint(states, chains)
+
+
 def run_chains_sharded(
     key: Array,
     pose0: Array,
@@ -35,44 +63,26 @@ def run_chains_sharded(
 ) -> MHState:
     """``cfg.n_chains`` independent chains sharded over ``mesh``'s chains axis.
 
-    Per-chain keys are folded from the *global* chain index, so results are
-    bitwise identical regardless of device count (1 chip or a pod slice).
+    The single-device program (:func:`mh_tpu.sampler.mh.run_chains`) with
+    its chains split over the devices by XLA's partitioner: per-chain keys
+    fold from the *global* chain index and each device runs the same
+    per-chain program, so results are bitwise identical at any device
+    count. The iteration count is a runtime value (one compile per shape).
     """
-    n_dev = mesh.shape[CHAINS_AXIS]
-    if cfg.n_chains % n_dev:
-        raise ValueError(f"n_chains={cfg.n_chains} not divisible by mesh size {n_dev}")
-    n_local = cfg.n_chains // n_dev
-
-    def device_fn(scene_rep: Scene, pose0_rep: Array) -> MHState:
-        # promote replicated inputs to varying so every op in the chain body
-        # has a consistent vma type (pcast is free — no communication)
-        scene_rep, pose0_rep = _varying((scene_rep, pose0_rep))
-        dev = jax.lax.axis_index(CHAINS_AXIS)
-        chain_ids = dev * n_local + jnp.arange(n_local)
-        keys = jax.vmap(lambda i: jax.random.fold_in(key, i))(chain_ids)
-        p0 = jnp.broadcast_to(pose0_rep, (n_local, *pose0_rep.shape))
-
-        def one_chain(k, p):
-            state = _varying(mh_init(p, scene_rep, k, cfg.mode))
-
-            def body(s, _):
-                return mh_step(s, scene_rep, cfg), None
-
-            state, _ = jax.lax.scan(body, state, None, length=cfg.iterations)
-            return finalize_costs(state, scene_rep, cfg)
-
-        return jax.vmap(one_chain)(keys, p0)
-
-    sharded = jax.shard_map(
-        device_fn,
-        mesh=mesh,
-        in_specs=(P(), P()),
-        out_specs=P(CHAINS_AXIS),
+    _check_divisible(cfg, mesh)
+    return _run_chains_sharded_jit(
+        key, pose0, scene, jnp.int32(cfg.iterations), _strip_iterations(cfg),
+        mesh,
     )
-    return sharded(scene, pose0)
 
 
 @partial(jax.jit, static_argnames=("cfg", "mesh"))
+def _continue_chains_sharded_jit(states, scene, n_steps, cfg, mesh):
+    chains = _partitioned_chains(mesh)
+    states = _continue_impl(states, scene, n_steps, cfg, sharding=chains)
+    return jax.lax.with_sharding_constraint(states, chains)
+
+
 def continue_chains_sharded(
     states: MHState,
     scene: Scene,
@@ -86,26 +96,10 @@ def continue_chains_sharded(
     Bitwise-identical to an uninterrupted :func:`run_chains_sharded` run of
     the combined length (per-step keys fold from carried state).
     """
-
-    def device_fn(states_l: MHState, scene_rep: Scene) -> MHState:
-        states_l, scene_rep = _varying((states_l, scene_rep))
-
-        def one_chain(s):
-            def body(ss, _):
-                return mh_step(ss, scene_rep, cfg), None
-
-            s, _ = jax.lax.scan(body, s, None, length=cfg.iterations)
-            return finalize_costs(s, scene_rep, cfg)
-
-        return jax.vmap(one_chain)(states_l)
-
-    sharded = jax.shard_map(
-        device_fn,
-        mesh=mesh,
-        in_specs=(P(CHAINS_AXIS), P()),
-        out_specs=P(CHAINS_AXIS),
+    _check_divisible(cfg, mesh)
+    return _continue_chains_sharded_jit(
+        states, scene, jnp.int32(cfg.iterations), _strip_iterations(cfg), mesh,
     )
-    return sharded(states, scene)
 
 
 @partial(jax.jit, static_argnames=("cfg", "mesh", "rounds", "steps_per_round"))
@@ -126,10 +120,8 @@ def run_chains_collective(
     chain. Returns ``(final MHState [n_chains,...], accept-rate trace
     f32[rounds], final shared log_scale)``.
     """
-    n_dev = mesh.shape[CHAINS_AXIS]
-    if cfg.n_chains % n_dev:
-        raise ValueError(f"n_chains={cfg.n_chains} not divisible by mesh size {n_dev}")
-    n_local = cfg.n_chains // n_dev
+    _check_divisible(cfg, mesh)
+    n_local = cfg.n_chains // mesh.shape[CHAINS_AXIS]
 
     def device_fn(scene_rep: Scene, pose0_rep: Array):
         scene_rep, pose0_rep = _varying((scene_rep, pose0_rep))

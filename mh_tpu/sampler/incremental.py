@@ -21,15 +21,12 @@ clearance/surface, all O(N) or smaller) are recomputed fully each step.
 PARITY-mode semantics only for the accept total (OffLimits never enters
 it); FIXED mode falls back to the full path.
 
-**Measured reality check (TPU v5e, N=100, 1024 chains):** this XLA-level
-implementation is ~140x *slower* than the full-recompute path (21.9 ms vs
-0.16 ms per step) — the carried [chains, N, N] matrix becomes ~GBs/step of
-HBM scatter/select traffic, far exceeding the O(N^2) compute it saves; at
-layout-scale N the fused full evaluation sits below the memory-traffic
-floor of any stored-matrix scheme that lives in HBM. The delta math here
-is exact and test-validated; its winning home is *inside* a VMEM-resident
-kernel (future work), not the XLA scan. Kept as the validated reference
-for that, and for research use at small chain counts.
+Cost of this scheme: the carried ``[chains, N, N]`` matrix turns into
+per-step scatter/select traffic over the whole matrix in device memory,
+which at layout-scale N can exceed the O(N^2) arithmetic it saves. Its
+speed on the GPU is not measured. The delta math here is exact and
+test-validated — the reference for an O(N) kernel that keeps the state
+on-chip, and for research use at small chain counts.
 """
 
 from __future__ import annotations
@@ -46,6 +43,7 @@ from mh_tpu.ops import costs as C
 from mh_tpu.sampler.mh import boltzmann_accept
 from mh_tpu.sampler.proposal import (
     _NEG_HUGE,
+    _apply_swap,
     _rank_pick,
     _unfrozen_ranks,
     translation_sigmas,
@@ -169,12 +167,7 @@ def _propose_with_info(u: Array, pose: Array, scene: Scene, cfg: SamplerConfig):
     wrapped = wrap_angle_once(rot + nrm2 * cfg.sigma_t, cfg.mode.pi)
     new_rot = rot + (is_r * sel1) * (wrapped - rot)
     star = pose.at[:, 0].set(new_x).at[:, 1].set(new_y).at[:, 4].set(new_rot)
-    row1 = sel1 @ star
-    row2 = sel2 @ star
-    can_swap = is_s & (scene.n_objs >= 2)
-    star = star + jnp.where(can_swap, 1.0, 0.0) * (
-        (sel1[:, None] - sel2[:, None]) * (row2 - row1)[None, :]
-    )
+    star = _apply_swap(star, scene, is_s, sel1, sel2)
     star = jnp.where(n_unf > 0, star, pose)
     k2 = jnp.where(is_s, i2, i1)
     return star, i1, k2

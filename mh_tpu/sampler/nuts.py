@@ -6,8 +6,8 @@ random-walk MH, ``Kernel.cu:706-713``): multinomial NUTS (Hoffman & Gelman
 warmup, sharing the ``logdensity_fn`` interface of :mod:`mh_tpu.sampler.hmc`
 and :mod:`mh_tpu.sampler.generic`.
 
-TPU-first design notes
-----------------------
+Static-shape design notes
+-------------------------
 The classic recursive tree build is replaced by a **stored-subtree** scheme
 that is jit/vmap-friendly with fully static shapes:
 
@@ -25,7 +25,7 @@ that is jit/vmap-friendly with fully static shapes:
 
 Under ``vmap`` both ``cond`` branches execute, so a batched chain always
 pays the full ``2**max_depth - 1`` leapfrog gradients per draw; that is the
-standard static-shape trade-off on TPU and is what keeps the program a
+standard static-shape trade-off on an accelerator and is what keeps the program a
 single fused XLA computation.
 
 Leapfrog with a negated step retraces the trajectory with identical physical

@@ -1,4 +1,4 @@
-"""Parallel tempering: a replica ladder with ppermute exchange over ICI.
+"""Parallel tempering: a replica ladder with ppermute exchange across devices.
 
 A capability the reference lacks entirely (its chains never communicate —
 SURVEY.md §2.4): K replicas sample the layout objective at an ascending
@@ -11,7 +11,7 @@ detailed-balance-preserving exchange for stationary densities
 
 The ladder is sharded over the mesh chains axis: each device holds a
 contiguous block of replicas, intra-block pairs swap locally, and the two
-block-boundary replicas travel over ICI via ``jax.lax.ppermute``. Swap
+block-boundary replicas travel between devices via ``jax.lax.ppermute``. Swap
 decisions are derived from a key folded with the *global* pair index, so
 both sides of a boundary pair compute the identical decision without any
 extra synchronization.
@@ -112,7 +112,7 @@ def run_tempered(
             return jax.vmap(one)(states, local_betas)
 
         def exchange(states, rnd, betas_now):
-            """Alternating even/odd neighbor swaps; boundaries over ICI."""
+            """Alternating even/odd neighbor swaps; boundaries cross devices."""
             phase = rnd % 2
             poses = states.pose  # [L,N,6]
             cvec = states.costs.as_vector()  # [L,8]

@@ -2,7 +2,7 @@
 
 An independent, loop-based implementation of the full reference sampling
 process (propose -> cost -> Boltzmann accept, ``Kernel.cu:576-828``) on top
-of the float64 cost oracle, with NumPy RNG. Used to check that the TPU
+of the float64 cost oracle, with NumPy RNG. Used to check that the JAX
 sampler targets the same stationary distribution (posterior moments agree
 within Monte-Carlo error) — the BASELINE correctness gate.
 """

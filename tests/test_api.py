@@ -8,11 +8,15 @@ are real (the reference returns garbage here, ``Kernel.cu:852-861``).
 
 import numpy as np
 
+import pytest
+
 from mh_tpu.api import suggest_layouts
-from mh_tpu.config import SamplerConfig
+from mh_tpu.config import CostMode, SamplerConfig
 from mh_tpu.models.scene import demo_scene
+from mh_tpu.parallel.mesh import chain_mesh
 
 import oracle
+from test_costs import random_spec
 
 
 def test_suggest_layouts_demo_scene():
@@ -44,40 +48,30 @@ def test_suggest_layouts_demo_scene():
     # penalized by the surface-area term.
 
 
-def test_unknown_engine_rejected():
-    import pytest
-    from mh_tpu.config import SamplerConfig
-
+@pytest.mark.parametrize("engine", ["cuda", "fused"])
+def test_unknown_engine_rejected(engine):
+    """Only the XLA engines exist; the former fused-kernel name is unknown."""
     with pytest.raises(ValueError, match="unknown engine"):
         suggest_layouts(
             demo_scene(4), SamplerConfig(iterations=1, n_chains=8),
-            engine="cuda",
+            engine=engine,
         )
 
 
-def test_fused_engine_handles_every_config():
-    """engine='fused' accepts a chains mesh (round 2: shard_map'd kernel;
-    off-TPU it runs the Pallas interpreter with the software PRNG), and
-    adaptation + block proposals are supported in-kernel — auto therefore
-    handles every sampler config on any platform."""
-    from mh_tpu.api import suggest_layouts
-    from mh_tpu.config import SamplerConfig
-    from mh_tpu.models.scene import demo_scene
-    from mh_tpu.parallel.mesh import chain_mesh
-
-    spec = demo_scene(8)
-    cfg = SamplerConfig(iterations=2, n_chains=8, adapt=True)
-    res = suggest_layouts(spec, cfg, key=0, engine="fused", mesh=chain_mesh())
-    assert res.points.shape[0] == 8
+@pytest.mark.parametrize(
+    "cfg",
+    [
+        SamplerConfig(iterations=2, n_chains=8, adapt=True),
+        SamplerConfig(iterations=2, n_chains=8, n_moves_per_step=4),
+    ],
+    ids=["adapt", "block4"],
+)
+def test_auto_engine_handles_every_config(cfg):
+    """auto serves adaptive and block-proposal configs."""
+    res = suggest_layouts(demo_scene(8), cfg, key=0, engine="auto")
+    assert res.points.shape == (8, 8, 6)
     assert np.isfinite(res.points).all()
     assert np.isfinite(res.costs).all()
-    # auto handles adaptive + block-proposal configs on any platform
-    for ok in (
-        cfg,
-        SamplerConfig(iterations=2, n_chains=8, n_moves_per_step=4),
-    ):
-        res = suggest_layouts(spec, ok, key=0, engine="auto")
-        assert res.points.shape[0] == 8
 
 
 def test_suggest_layouts_mesh_sharding_invariant():
@@ -132,67 +126,87 @@ def test_suggest_layouts_objsharded_huge_scene():
     np.testing.assert_array_equal(res.points, res2.points)
 
     with pytest.raises(ValueError, match="XLA engine"):
-        suggest_layouts(spec, cfg, key=1, objs_devices=4, engine="fused")
+        suggest_layouts(spec, cfg, key=1, objs_devices=4,
+                        engine="xla_specialized")
     with pytest.raises(ValueError, match="divide"):
         suggest_layouts(spec, cfg, key=1, objs_devices=3)
 
 
-def test_auto_engine_dispatch_table():
+@pytest.mark.parametrize(
+    "serve,single_device,want",
+    [
+        (False, True, "xla"),
+        (False, False, "xla"),
+        (True, True, "xla_specialized"),
+        (True, False, "xla"),
+    ],
+)
+def test_auto_engine_dispatch_table(serve, single_device, want):
     """Pin the auto-engine decision across {1, >1} devices x {one-shot,
-    serve} (docs/API.md "Auto dispatch" table)."""
-    from mh_tpu.api import FUSED_CROSSOVER, SERVE_CROSSOVER, auto_engine
+    serve} (docs/API.md "Auto dispatch")."""
+    from mh_tpu.api import auto_engine
 
-    base = dict(on_tpu=True, serve=False, n_chains=1024, n_dev=1,
-                explicit_mesh=False, shared_pose0=True)
-
-    # single device, one-shot: scan below the fused crossover, fused above
-    assert auto_engine(**{**base, "n_pad_objs": FUSED_CROSSOVER}) == "xla"
-    assert auto_engine(**{**base, "n_pad_objs": FUSED_CROSSOVER + 1}) == "fused"
-    # single device, serving: specialized below its crossover, fused above
-    assert auto_engine(
-        **{**base, "serve": True, "n_pad_objs": SERVE_CROSSOVER}
-    ) == "xla_specialized"
-    assert auto_engine(
-        **{**base, "serve": True, "n_pad_objs": SERVE_CROSSOVER + 1}
-    ) == "fused"
-    # multi-device: fused stays available via the sharded kernel (chains
-    # split evenly, one shared pose0) — the round-2 auto served the slow
-    # generic scan on any pod
-    multi = {**base, "n_dev": 8, "n_pad_objs": 256}
-    assert auto_engine(**multi) == "fused"
-    assert auto_engine(**{**multi, "serve": True}) == "fused"
-    # chains that don't split, or per-chain starts: generic scan
-    assert auto_engine(**{**multi, "n_chains": 1023}) == "xla"
-    assert auto_engine(**{**multi, "shared_pose0": False}) == "xla"
-    # off-TPU there is no fused kernel
-    assert auto_engine(**{**base, "on_tpu": False, "n_pad_objs": 512}) == "xla"
+    assert auto_engine(serve=serve, single_device=single_device) == want
 
 
-def test_auto_fused_failure_falls_back_to_xla(monkeypatch):
-    """An auto-selected fused engine that fails (e.g. a compile error the
-    in-kernel retry could not fix) must degrade to the XLA engine with a
-    warning — the round-2 bench died because this path crashed instead."""
-    import warnings
+def _unsharded(spec, cfg, key):
+    """The plain unsharded ``run_chains`` result, as suggest_layouts
+    returns it."""
+    import jax
 
-    import mh_tpu.api as api
+    from mh_tpu.api import _result_from_state
+    from mh_tpu.sampler.mh import run_chains
 
-    def boom(*a, **k):
-        raise RuntimeError("synthetic fused failure")
+    state, _ = run_chains(jax.random.key(key), spec.initial_pose(),
+                          spec.build(), cfg)
+    return _result_from_state(spec.build(), state)
 
-    monkeypatch.setattr(api, "_run_fused", boom)
-    monkeypatch.setattr(
-        api, "auto_engine", lambda **kw: "fused"
-    )
+
+def test_auto_serve_on_many_devices_shards_the_generic_scan():
+    """serve=True with 8 visible devices keeps the sharded ``xla`` engine,
+    which equals the unsharded run bitwise."""
+    import io
+    import json
+
     spec = demo_scene(8)
-    cfg = SamplerConfig(iterations=2, n_chains=8)
-    with warnings.catch_warnings(record=True) as caught:
-        warnings.simplefilter("always")
-        res = api.suggest_layouts(spec, cfg, key=0, engine="auto")
-    assert res.points.shape[0] == 8
-    assert any("falling back" in str(w.message) for w in caught)
+    cfg = SamplerConfig(iterations=10, n_chains=16)
+    log = io.StringIO()
+    res = suggest_layouts(spec, cfg, key=2, serve=True, log=log)
+    engines = {json.loads(l).get("engine") for l in log.getvalue().splitlines()}
+    assert engines - {None} == {"xla"}
+    ref = _unsharded(spec, cfg, 2)
+    np.testing.assert_array_equal(res.points, ref.points)
+    np.testing.assert_array_equal(res.costs, ref.costs)
 
-    # an EXPLICIT engine="fused" propagates the failure instead
-    import pytest
 
-    with pytest.raises(RuntimeError, match="synthetic"):
-        api.suggest_layouts(spec, cfg, key=0, engine="fused")
+@pytest.mark.parametrize("engine", ["xla", "xla_specialized"])
+@pytest.mark.parametrize("mode", [CostMode.PARITY, CostMode.FIXED])
+@pytest.mark.parametrize("seed", [11, 23])
+def test_random_scene_costs_match_oracle(seed, mode, engine):
+    """Randomized geometry, relationships in both angle regimes,
+    clearances and a weighted off-limits term through the public engines:
+    every reported term agrees with the float64 oracle on the final poses."""
+    spec = random_spec(np.random.default_rng(seed))
+    cfg = SamplerConfig(iterations=50, n_chains=8, mode=mode)
+    res = suggest_layouts(spec, cfg, key=seed, engine=engine)
+    assert np.isfinite(res.points).all()
+    for c in range(cfg.n_chains):
+        want = oracle.breakdown(spec, np.asarray(res.points[c], np.float64),
+                                parity=mode is CostMode.PARITY)
+        for i, k in enumerate(type(res).COST_FIELDS):
+            np.testing.assert_allclose(
+                res.costs[c, i], want[k], rtol=2e-4, atol=2e-3,
+                err_msg=f"chain {c} {k}",
+            )
+
+
+@pytest.mark.parametrize("n_dev", [1, 2, 4, 8])
+def test_chain_sharding_device_count_invariant(n_dev):
+    """The XLA engine sharded over 1/2/4/8 devices equals the unsharded
+    run bitwise."""
+    spec = demo_scene(8)
+    cfg = SamplerConfig(iterations=20, n_chains=16)
+    got = suggest_layouts(spec, cfg, key=7, mesh=chain_mesh(n_dev))
+    ref = _unsharded(spec, cfg, 7)
+    for f in ("points", "costs", "accept_rate", "step_scale"):
+        np.testing.assert_array_equal(getattr(got, f), getattr(ref, f))

@@ -95,8 +95,8 @@ def test_objsharded_mesh_shape_invariance():
 
 
 def test_objsharded_huge_scene_samples():
-    """A 2048-object scene — far beyond one chip's comfortable VMEM for the
-    N x N terms — actually runs MH steps on the (1 x 8) objs mesh."""
+    """A 2048-object scene — large enough that one device's
+    N x N terms are worth splitting — actually runs MH steps on the (1 x 8) objs mesh."""
     import jax
 
     from mh_tpu.config import SamplerConfig

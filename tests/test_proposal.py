@@ -177,3 +177,53 @@ def test_move_type_and_object_pick_distribution_equivalence():
     assert 0.5 * np.abs(ref_c - our_c).sum() < 2e-5, (
         0.5 * np.abs(ref_c - our_c).sum()
     )
+
+
+def _hard_pose(n: int) -> np.ndarray:
+    """Coordinates with full 24-bit mantissas (a TF32 product keeps 10)."""
+    base = 1.2345678 + 0.0123456789 * np.arange(n * 6, dtype=np.float64)
+    return np.asarray(base.reshape(n, 6) * (1 + np.arange(n)[:, None]), np.float32)
+
+
+@pytest.mark.parametrize("path", ["apply_move", "incremental"])
+@pytest.mark.parametrize("n", [2, 8, 100])
+def test_swap_is_exact_row_permutation(n, path):
+    """A swap leaves the pose rows an exact permutation of the input rows
+    (bitwise), for every object pair, through both proposal paths."""
+    from mh_tpu.sampler import incremental
+
+    scene = demo_scene(n).build()
+    pose = _hard_pose(scene.n_pad_objs)
+    rng = np.random.default_rng(n)
+    cfg = SamplerConfig()
+    if path == "apply_move":
+        i1 = rng.integers(0, n, 64)
+        i2 = rng.integers(0, n, 64)
+        eye = np.eye(scene.n_pad_objs, dtype=np.float32)
+        got = jax.vmap(lambda s1, s2: P._apply_move(
+            jnp.asarray(pose), scene, cfg, jnp.float32(1.0), jnp.int32(2),
+            s1, s2, jnp.zeros((3,), jnp.float32),
+        ))(eye[i1], eye[i2])
+    else:
+        u = rng.uniform(0.0, 1.0, (64, 8)).astype(np.float32)
+        u[:, 0] = 0.9  # move type 2: swap
+        got, i1, i2 = jax.vmap(lambda uu: incremental._propose_with_info(
+            uu, jnp.asarray(pose), scene, cfg))(jnp.asarray(u))
+        i1, i2 = np.asarray(i1), np.asarray(i2)
+    want = np.repeat(pose[None], 64, axis=0)
+    rows = np.arange(64)
+    want[rows, i1], want[rows, i2] = pose[i2], pose[i1]
+    np.testing.assert_array_equal(np.asarray(got), want)
+    if n > 2:
+        assert np.any(i1 != i2)
+
+
+def test_select_row_matches_onehot_product_on_cpu():
+    """The index gather equals the one-hot product it replaced, bitwise,
+    where that product is exact (the CPU)."""
+    pose = jnp.asarray(_hard_pose(16))
+    eye = jnp.eye(16, dtype=jnp.float32)
+    got = jax.vmap(lambda s: P.select_row(s, pose))(eye)
+    want = jax.vmap(lambda s: s @ pose)(eye)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(pose))
